@@ -1,5 +1,5 @@
-"""Benchmark: the flagship metrics (BASELINE.json.metric) on the current
-default JAX device (real TPU under the driver).
+"""Benchmark: the flagship metrics (BASELINE.json.metric) on one NVIDIA GPU.
+Exits non-zero when JAX finds no GPU: a CPU timing is not a device metric.
 
   1. frames/sec of the fused tracking + windowed-local-BA step (device-bound
      kernel metric, 1000 features/frame).
@@ -131,15 +131,11 @@ def bench_rooflines(cfg, warm_state, step_dt, ba_dt):
     out["matcher_1kx1k"] = roofline.analyze(m_c, m_dt, peaks).as_dict()
 
     img = jax.random.uniform(jax.random.PRNGKey(3), (480, 640), jnp.float32) * 255.0
-    from monocular_slam_tpu.ops.backend import is_tpu
-    if is_tpu():
-        from monocular_slam_tpu.ops.pallas import fast_score
-        f_c, f_dt = timed(lambda im: fast_score.corner_maps(im, 20.0), (img,))
-    else:
-        from monocular_slam_tpu.ops import fast
-        f_c, f_dt = timed(
-            lambda im: (fast.nms3(fast.corner_score(im, 20.0)),
-                        fast.corner_score_raw(im)), (img,))
+    from monocular_slam_tpu.ops import fast
+
+    f_c, f_dt = timed(
+        lambda im: (fast.nms3(fast.corner_score(im, 20.0)),
+                    fast.corner_score_raw(im)), (img,))
     out["fast_640x480"] = roofline.analyze(f_c, f_dt, peaks).as_dict()
 
     e_c, e_dt = timed(
@@ -148,7 +144,8 @@ def bench_rooflines(cfg, warm_state, step_dt, ba_dt):
     out["extract_640x480"] = roofline.analyze(e_c, e_dt, peaks).as_dict()
 
     log(f"-- roofline ({peaks.name}: {peaks.peak_flops/1e12:.0f} TF/s bf16, "
-        f"{peaks.peak_bw/1e9:.0f} GB/s) --")
+        f"{peaks.peak_bw/1e9:.0f} GB/s, {peaks.source}; card power limit "
+        f"{roofline.name_power_limit()[0]}) --")
     for name, r in out.items():
         log(f"  {name:16s} {r['wall_ms']:8.3f} ms  {r['flops']/1e9:8.2f} GF  "
             f"AI {r['intensity_flop_per_byte']:7.1f}  mfu {r['mfu']*100:5.1f}%  "
@@ -174,7 +171,7 @@ def bench_image_pipeline(n_feat: int):
     from monocular_slam_tpu.slam.session import SlamSession
     import numpy as np
 
-    root = os.environ.get("MSLAM_BENCH_TUM", "/tmp/mslam_bench_tum")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".data", "bench_tum")
     vfile = os.path.join(root, "VERSION")
     cached_v = open(vfile).read().strip() if os.path.exists(vfile) else None
     if not os.path.exists(os.path.join(root, "rgb.txt")) or cached_v != str(
@@ -230,7 +227,7 @@ def bench_image_pipeline(n_feat: int):
     gt = np.stack([f.pose_gt for f in seq.frames])
     r = ate_mod.ate(poses[valid], gt[: len(valid)][valid])
 
-    # loop-closure-attached fps (VERDICT r03 #4): same pipeline with the
+    # loop-closure-attached fps: same pipeline with the
     # bundled vocabulary + LoopCloser. Detection runs at keyframe rate and
     # the per-frame cost is the tracked/keyframe scalar syncs.
     from monocular_slam_tpu.retrieval import vocabulary as vocab_mod
@@ -241,11 +238,11 @@ def bench_image_pipeline(n_feat: int):
     lc_poses, lc_valid, _ = lc_sess.trajectory()
     lc_r = ate_mod.ate(lc_poses[lc_valid], gt[: len(lc_valid)][lc_valid])
 
-    # overlapped ingest (VERDICT r4 #7): disk-PNG -> pose with the threaded
+    # overlapped ingest: disk-PNG -> pose with the threaded
     # native decoder PREFETCHING ahead of the device — decode+upload of
     # frame i+depth overlaps the device step of frame i, so end-to-end-from-
     # disk throughput approaches the preloaded-HBM fps instead of
-    # serializing 44 ms of host decode behind each 18 ms device step.
+    # serializing host decode behind each device step.
     def overlapped_pass(depth: int = 6):
         from concurrent.futures import ThreadPoolExecutor
 
@@ -281,15 +278,25 @@ def bench_image_pipeline(n_feat: int):
 
 
 def main():
+    from monocular_slam_tpu.utils import roofline
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"bench: needs a GPU; JAX found {dev.platform!r}")
+    device = {
+        "platform": dev.platform,
+        "kind": dev.device_kind,
+        "count": jax.device_count(),
+        "name_power_limit": roofline.name_power_limit()[0],
+    }
+    log("device:", device)
+
     from monocular_slam_tpu.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     from monocular_slam_tpu.datasets import synthetic
     from monocular_slam_tpu.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu.slam.session import SlamSession
-
-    dev = jax.devices()[0]
-    log("device:", dev)
 
     # Reference-scale workload: 1000 features/frame, 5-frame back-traverse,
     # 8-frame local BA window (reference processes 100 frames @ ~1000 ORB
@@ -367,7 +374,7 @@ def main():
                 "kernel_tracked": f"{int(valid.sum())}/{len(valid)}",
                 "ba_iters_per_sec": round(ba_ips, 1),
                 "warmup_s": round(warmup_feat, 1),
-                "device": str(dev),
+                "device": device,
                 # per-kernel roofline/MFU (BASELINE.json speed-of-light
                 # clause): XLA cost-model flops+bytes over measured wall vs
                 # device peaks; "bound" names the nearer wall, sol_frac the

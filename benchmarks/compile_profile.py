@@ -1,10 +1,11 @@
-"""Per-program compile-time breakdown for the SLAM session (VERDICT r2 #2).
+"""Per-program compile-time breakdown for the SLAM session.
 
-Times cold compile (fresh cache dir) and steady-state execution of every
-jitted stage the session dispatches, on the current default device. Run on
-the real TPU to see where the cold-session warmup goes:
+Times cold compile (no persistent cache) and steady-state execution of every
+jitted stage the session dispatches, on the current default device, to see
+where the cold-session warmup goes:
 
-    python benchmarks/compile_profile.py [--cache /path]   # fresh tmp default
+    python benchmarks/compile_profile.py            # persistent cache off: cold
+    python benchmarks/compile_profile.py --warm     # through the persistent cache
 
 Writes benchmarks/compile_profile_<platform>.json.
 """
@@ -15,25 +16,26 @@ import argparse
 import json
 import os
 import sys
-import tempfile
 import time
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cache", default=None, help="cache dir (default: fresh tmp = true cold)")
+    ap.add_argument("--warm", action="store_true",
+                    help="compile through the persistent cache (default: off, true cold)")
     ap.add_argument("--n-feat", type=int, default=1000)
     args = ap.parse_args()
-
-    cache = args.cache or tempfile.mkdtemp(prefix="mslam_coldcache_")
-    os.environ["MSLAM_JAX_CACHE"] = cache
 
     import jax
     import jax.numpy as jnp
 
-    from monocular_slam_tpu.utils.cache import enable_compilation_cache
+    if args.warm:
+        from monocular_slam_tpu.utils.cache import enable_compilation_cache
 
-    enable_compilation_cache(cache)
+        cache = enable_compilation_cache()
+    else:
+        jax.config.update("jax_enable_compilation_cache", False)
+        cache = None
 
     from functools import partial
 

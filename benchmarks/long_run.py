@@ -1,4 +1,4 @@
-"""Long-trajectory live-session benchmark (VERDICT r03 #2 / SURVEY §5.7).
+"""Long-trajectory live-session benchmark (SURVEY §5.7).
 
 Drives a ≥1,000-frame rendered multi-revolution orbit through a LIVE
 SlamSession with the slot-recycled feature tier (max_slots << n_frames) and
@@ -21,6 +21,8 @@ import os
 import sys
 import time
 
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".data")
+
 
 def state_nbytes(state) -> int:
     import jax
@@ -34,7 +36,7 @@ def main():
     ap.add_argument("--slots", type=int, default=256)
     ap.add_argument("--wh", type=int, nargs=2, default=(640, 480))
     ap.add_argument("--features", type=int, default=1000)
-    ap.add_argument("--root", default="/tmp/mslam_long_tum")
+    ap.add_argument("--root", default=os.path.join(DATA, "long_tum"))
     ap.add_argument("--vocab", default="bundled",
                     help="'bundled' or a path to a vocabulary .npz")
     ap.add_argument("--steer", default="continuous",
@@ -44,7 +46,6 @@ def main():
                          "FrontendConfig.steer_mode)")
     args = ap.parse_args()
 
-    os.environ.setdefault("MSLAM_JAX_CACHE", os.path.expanduser("~/.cache/mslam_jax"))
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -184,7 +185,7 @@ def main():
     print("wrote", path, file=sys.stderr)
     # trajectory dump for offline error analysis (not committed)
     np.savez_compressed(
-        f"/tmp/long_run_traj_{dev.platform}.npz",
+        os.path.join(DATA, f"long_run_traj_{dev.platform}.npz"),
         poses=poses, valid=valid, gt=gt,
         keyframes=np.asarray(sess.keyframes),
         closures=np.asarray(lc.closures or np.zeros((0, 2))),

@@ -1,10 +1,9 @@
 """Distributed-BA scaling benchmark.
 
 Measures LM iterations/sec of the landmark-sharded global BA at 1..N shards.
-On real multi-chip hardware the mesh rides ICI; in this container (one TPU
-chip) the scaling harness runs on N virtual CPU devices, which validates the
-collective structure and load balance — absolute numbers come from real
-slices.
+On a host with several GPUs the mesh rides NVLink; on N virtual CPU devices
+the harness validates the collective structure and load balance, and times
+are not device times.
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python benchmarks/scaling.py --frames 32 --points 20000

@@ -1,4 +1,4 @@
-"""Train and evaluate the bundled vocabulary (VERDICT r03 #6, r04 #9).
+"""Train and evaluate the bundled vocabulary.
 
 DBoW2's shipped ORB vocabulary is k=10, L=5 (1e5 words,
 `TemplatedVocabulary.h:55-57`). This trains the 1e4 (k=10, L=4) and 1e5
@@ -23,6 +23,8 @@ import json
 import os
 import sys
 import time
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".data")
 
 
 def _augment(img, rng):
@@ -112,7 +114,8 @@ def main():
         print(f"trained {name}: {voc.n_words} words in "
               f"{time.perf_counter() - t0:.0f}s", file=sys.stderr)
         # scratch dump for in-pipeline A/B runs (not committed)
-        vocab_mod.save(f"/tmp/vocab_{voc.n_words}.npz", voc)
+        os.makedirs(DATA, exist_ok=True)
+        vocab_mod.save(os.path.join(DATA, f"vocab_{voc.n_words}.npz"), voc)
 
     # --- evaluation: disjoint scenes, revisit retrieval under shift ---------
     # DB = first revolution of each eval scene (clean renders); queries =

@@ -1,4 +1,4 @@
-"""monocular_slam_tpu — a TPU-native monocular SLAM engine built from scratch in JAX.
+"""monocular_slam_tpu — a monocular SLAM engine built from scratch in JAX.
 
 Capability surface mirrors the C++ reference ``eastgeneral2007/Monocular_SLAM``
 (see SURVEY.md): ORB-style feature extraction + Hamming matching, eight-point +
@@ -8,9 +8,9 @@ Schur-complement reduction over camera/landmark blocks), bag-of-words loop
 closure, Sim3 pose-graph optimization, TUM/KITTI/Middlebury dataset loaders,
 trajectory + point-cloud export, and ATE/RPE evaluation.
 
-The design is TPU-first: fixed-capacity mask-padded state pytrees, vmapped
-hypothesis sampling instead of sequential RANSAC loops, matmul-shaped Hamming
-distances on the MXU, `lax.while_loop` trust-region LM, and `shard_map`
+The design is accelerator-first: fixed-capacity mask-padded state pytrees,
+vmapped hypothesis sampling instead of sequential RANSAC loops, matmul-shaped
+Hamming distances, `lax.while_loop` trust-region LM, and `shard_map`
 distribution of BA edge sets over a `jax.sharding.Mesh`.
 """
 

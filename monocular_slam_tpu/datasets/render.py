@@ -15,6 +15,8 @@ single plane would be homography-degenerate for E/F estimation).
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import NamedTuple
 
 import jax
@@ -29,7 +31,8 @@ from monocular_slam_tpu.geometry import se3
 SYNTH_K = np.array([517.3, 516.5, 318.6, 255.3])
 
 # Bump when the renderer's output changes so cached on-disk datasets
-# (bench.py keeps one under /tmp) are regenerated instead of reused stale.
+# (bench.py keeps one under the checkout's .data/) are regenerated instead of
+# reused stale.
 RENDER_VERSION = 2
 
 
@@ -184,6 +187,26 @@ def _rt_to_tum_line(ts: float, pose: np.ndarray) -> str:
     return f"{ts:.6f} " + " ".join(f"{v:.6f}" for v in vals)
 
 
+def write_png_gray8(path: str, img: np.ndarray) -> None:
+    """Write an (H, W) uint8 array as an 8-bit grayscale PNG: signature,
+    IHDR, one zlib-compressed IDAT of unfiltered scanlines, IEND."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
+
+    # each scanline is prefixed with filter type 0 (None)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1).tobytes()
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)  # 8-bit, gray
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", ihdr))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
 def export_tum(
     root: str,
     key=None,
@@ -195,8 +218,6 @@ def export_tum(
     """Render a sequence and write it as a TUM RGB-D dataset directory
     (rgb/*.png + rgb.txt + groundtruth.txt). Returns `root`. Layout matches
     what `datasets/tum.load` (and the reference's `FrameLoader`) expects."""
-    from PIL import Image
-
     key = jax.random.PRNGKey(0) if key is None else key
     imgs, poses, k = render_sequence(key, n_frames=n_frames, wh=wh, **render_kwargs)
     os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
@@ -205,8 +226,8 @@ def export_tum(
     for i in range(n_frames):
         ts = i / fps
         name = f"rgb/{ts:.6f}.png"
-        Image.fromarray(np.clip(imgs[i], 0, 255).astype(np.uint8), "L").save(
-            os.path.join(root, name)
+        write_png_gray8(
+            os.path.join(root, name), np.clip(imgs[i], 0, 255).astype(np.uint8)
         )
         rgb_lines.append(f"{ts:.6f} {name}")
         gt_lines.append(_rt_to_tum_line(ts, poses[i]))

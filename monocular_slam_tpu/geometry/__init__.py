@@ -1,4 +1,4 @@
-"""Core differential geometry + multiple-view geometry for SLAM on TPU.
+"""Core differential geometry + multiple-view geometry for SLAM.
 
 Everything here is pure jax.numpy, shape-static, and vmap-friendly. These
 modules replace the reference's Eigen/OpenCV math layer

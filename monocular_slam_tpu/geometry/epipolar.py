@@ -1,6 +1,6 @@
 """Two-view epipolar geometry: eight-point, Sampson, E decomposition, cheirality.
 
-TPU-native replacement for the reference's two-view bootstrap
+Vectorized replacement for the reference's two-view bootstrap
 (`src/CameraPoseEstimator.cpp:264-376` and the from-scratch estimator at
 `:596-786`). The reference runs a sequential 2000-iteration RANSAC loop with a
 per-sample 8x9 SVD; here every hypothesis is a lane of a vmapped batch: one
@@ -86,7 +86,7 @@ def eight_point(
     uv1n, T1 = hartley_normalize(uv1, mask)
     uv2n, T2 = hartley_normalize(uv2, mask)
     A = _constraint_rows(uv1n, uv2n) * weights[..., None]
-    # r=N-row Gram expanded: per-hypothesis K=N dots pad MXU tiles (see
+    # r=N-row Gram expanded to broadcast-multiply-sum (see
     # utils.precision.small_mv)
     AtA = small_gram(A)  # (..., 9, 9)
     from monocular_slam_tpu.utils.linalg import nullspace_vector
@@ -166,7 +166,8 @@ def ransac_fundamental(
     s1 = uv1[idx]  # (K, 8, 2)
     s2 = uv2[idx]
     # Hypothesis batch uses fast inverse iteration instead of batched eigh
-    # (TPU eigh on K x 9x9 is the RANSAC bottleneck); the refit below is exact.
+    # (batched eigh on K x 9x9 is the RANSAC bottleneck); the refit below is
+    # exact.
     F_h = eight_point(s1, s2, solver="inv_iter")  # (K, 3, 3)
     d2 = sampson_distance(F_h, uv1[None], uv2[None])  # (K, N)
     inl = (d2 < thresh * thresh) & mask[None]

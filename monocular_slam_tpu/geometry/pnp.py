@@ -50,7 +50,7 @@ def pnp_dlt(
     rows1 = jnp.concatenate([Xh, zeros, -x * Xh], axis=-1)  # (..., n, 12)
     rows2 = jnp.concatenate([zeros, Xh, -y * Xh], axis=-1)
     A = jnp.concatenate([rows1 * w[..., None], rows2 * w[..., None]], axis=-2)  # (..., 2n, 12)
-    AtA = small_gram(A)  # 2n rows expanded (MXU-padding, utils.precision)
+    AtA = small_gram(A)  # 2n rows expanded (see utils.precision)
     from monocular_slam_tpu.utils.linalg import nullspace_vector
 
     p = nullspace_vector(AtA, method=solver)

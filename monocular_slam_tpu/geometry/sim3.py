@@ -96,7 +96,7 @@ def _V_matrix(omega: jnp.ndarray, sigma: jnp.ndarray) -> jnp.ndarray:
     # Branch thresholds MUST be dtype-aware (eps^(1/4), same rule as
     # `so3._small_angle_threshold`): the generic formulas divide O(eps)
     # rounding error by th*(s2+th2). With the old fixed 1e-8/1e-6 cutoffs a
-    # theta ~ 1.5e-4 rotation on TPU f32 (trig error ~1e-7 absolute) made V
+    # theta ~ 1.5e-4 rotation in f32 (trig error ~1e-7 absolute) made V
     # wrong by factors of 10-1000 and pose-graph residual upsilons exploded.
     # Cancellation-stable pieces: s-1 via expm1, 1 - s*cos via
     # 2 sin^2(th/2) - (s-1) cos.
@@ -143,11 +143,11 @@ def _V_matrix(omega: jnp.ndarray, sigma: jnp.ndarray) -> jnp.ndarray:
 def _inv3x3(M: jnp.ndarray) -> jnp.ndarray:
     """Closed-form cofactor inverse of a batched 3x3 matrix.
 
-    Used instead of jnp.linalg.solve/inv in the exp/log hot path: XLA's
-    TPU LU lowering returned inf for well-conditioned near-identity V
-    matrices (observed on v5e — every pose-graph residual upsilon became
-    inf), while the cofactor form is plain VPU arithmetic and exact to
-    f32 rounding."""
+    Used instead of jnp.linalg.solve/inv in the exp/log hot path: an LU
+    lowering has returned inf for well-conditioned near-identity V
+    matrices (every pose-graph residual upsilon became inf), while the
+    cofactor form is plain elementwise arithmetic and exact to f32
+    rounding."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
     g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]

@@ -1,6 +1,6 @@
 """SO(3) rotation group: exp/log maps, quaternion conversions.
 
-TPU-native replacement for the rotation handling scattered through the
+Vectorized replacement for the rotation handling scattered through the
 reference (quaternion->R in `src/FrameLoader.cpp:97-114`, g2o
 `types/se3quat.h` exp/log). All functions are elementwise-safe (no
 data-dependent branches — `jnp.where` with Taylor fallbacks) so they can be
@@ -79,7 +79,7 @@ def log(R: jnp.ndarray) -> jnp.ndarray:
     # Guard must be a NORMAL number in the working dtype: 1e-40 underflows to
     # a (often flushed-to-zero) denormal in f32, making d/dq sqrt(q+guard)
     # infinite at q == 0 — exactly-symmetric residual rotations then poison
-    # every pose-graph Jacobian with NaN (seen on TPU/CPU f32).
+    # every pose-graph Jacobian with NaN (seen in f32).
     tiny = jnp.finfo(R.dtype).tiny
     sin_t = 0.5 * jnp.sqrt(jnp.sum(antisym * antisym, axis=-1) + tiny)
     theta = jnp.arctan2(sin_t, cos_t)

@@ -54,7 +54,7 @@ def triangulate_dlt(
 
     # Row-normalize for conditioning, then smallest eigenvector of A^T A.
     A = A / jnp.maximum(jnp.linalg.norm(A, axis=-1, keepdims=True), _EPS)
-    AtA = small_gram(A)  # r=4 rows expanded (MXU-padding, utils.precision)
+    AtA = small_gram(A)  # r=4 rows expanded (see utils.precision)
     _, V = jnp.linalg.eigh(AtA)  # ascending eigenvalues
     Xh = V[..., :, 0]
     w = Xh[..., 3]

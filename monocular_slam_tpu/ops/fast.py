@@ -2,8 +2,8 @@
 
 Replaces OpenCV's FAST inside `OrbFeatureDetector` (`src/FeatureExtractor.cpp`).
 The classic implementation early-exits per pixel on a 16-pixel Bresenham ring
-test — data-dependent control flow a TPU can't use. Here EVERY pixel evaluates
-the full ring simultaneously on the VPU:
+test — data-dependent control flow that does not vectorize. Here EVERY pixel
+evaluates the full ring simultaneously:
 
   - d_i = ring_i - center for the 16 ring offsets (static rolls of the image)
   - a pixel is a corner if some 9 contiguous d_i are all > t (bright arc) or
@@ -65,10 +65,14 @@ def corner_score_raw(img: jnp.ndarray) -> jnp.ndarray:
 
 def corner_score(img: jnp.ndarray, threshold: float = 20.0) -> jnp.ndarray:
     """FAST-9 corner score per pixel (0 where not a corner). img: (H, W)."""
-    score = corner_score_raw(img)
-    score = jnp.where(score > threshold, score, 0.0)
-    # Kill the border ring (rolls wrap around the image edges).
-    H, W = img.shape[-2:]
+    return threshold_score(corner_score_raw(img), threshold)
+
+
+def threshold_score(raw: jnp.ndarray, threshold: float = 20.0) -> jnp.ndarray:
+    """`corner_score` from a precomputed raw score map: zero below the
+    threshold and in the border ring (where the rolls wrap around)."""
+    score = jnp.where(raw > threshold, raw, 0.0)
+    H, W = raw.shape[-2:]
     ys = jnp.arange(H)[:, None]
     xs = jnp.arange(W)[None, :]
     interior = (
@@ -95,8 +99,7 @@ def subpixel_offsets(
     """(K, 2) sub-pixel (dy, dx) offsets for integer corner positions `yx`.
 
     Fits a 1D parabola per axis through the FAST-9 scores of the 3x3
-    neighborhood (recomputed at just those pixels with one batched gather —
-    cheap, and backend-agnostic so the Pallas and XLA detectors share it).
+    neighborhood (recomputed at just those pixels with one batched gather).
     FAST corners are integer-quantized; at pyramid level L the quantization
     is ~1.2^L level-0 pixels, which dominates triangulation depth error for
     fine features. OpenCV's ORB ships integer corners (the reference
@@ -150,12 +153,11 @@ def subpixel_from_raw(
     raw: jnp.ndarray, yx: jnp.ndarray, threshold: float = 20.0
 ) -> jnp.ndarray:
     """(K, 2) sub-pixel (dy, dx) offsets for integer corner positions `yx`,
-    read from a precomputed raw score map (`corner_score_raw`, or the Pallas
-    kernel's second output).
+    read from a precomputed raw score map (`corner_score_raw`).
 
     Same parabola as `subpixel_offsets`, but as four shifted full-image maps
     + three (K,)-sized flat gathers instead of 17 (K, 3, 3) element-granular
-    gathers (which measured ~4 ms at K=1000 on v5e; this path is ~free).
+    gathers.
     Bit-identical for every keypoint the `ok` gate accepts: the gate excludes
     the outer BORDER+1 ring, where (and only where) the map's wrap-around
     differs from the old clamped per-sample gathers."""

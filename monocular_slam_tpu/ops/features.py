@@ -35,30 +35,12 @@ def extract(
     n_features: int = 1000,
     n_levels: int = pyramid.N_LEVELS,
     fast_threshold: float = 20.0,
-    use_pallas: bool | None = None,
     steer_mode: str = "binned",
 ) -> orb.Features:
     """Extract ORB features from a grayscale (H, W) float image in [0, 255].
 
     Returns a fixed-capacity `Features` with exactly n_features slots (invalid
-    slots masked). use_pallas routes corner detection through the fused
-    Pallas score+NMS kernel (`ops/pallas/fast_score.py`) — bit-identical,
-    1.5x (TUM) to 3.7x (KITTI) faster on TPU v5e. Default (None): Pallas on
-    TPU, pure-XLA on CPU."""
-    if use_pallas is None:
-        from monocular_slam_tpu.ops.backend import is_tpu
-
-        use_pallas = is_tpu()
-    if use_pallas:
-        from monocular_slam_tpu.ops.pallas import fast_score
-
-        maps_fn = fast_score.corner_maps
-    else:
-        maps_fn = lambda im, thr: (  # noqa: E731
-            fast.nms3(fast.corner_score(im, thr)),
-            fast.corner_score_raw(im),
-        )
-
+    slots masked)."""
     img = img.astype(jnp.float32)
     levels = pyramid.build_pyramid(img, n_levels)
     budgets = _level_budgets(n_features, n_levels)
@@ -66,15 +48,10 @@ def extract(
     uvs, descs, pm1s, angles, scores, scales, valids = [], [], [], [], [], [], []
     for lvl, (im_l, budget) in enumerate(zip(levels, budgets)):
         sc = pyramid.level_scale(lvl)
-        nms_map, raw_map = maps_fn(im_l, fast_threshold)
-        # approx_max_k on TPU: the exact top_k sorts the whole H*W map per
-        # level; the approximate reduction is ~2x cheaper and only risks
-        # swapping near-equal corner scores at the budget boundary (the
-        # strongest corners always survive at recall_target=0.95)
-        if use_pallas:
-            vals, idx = jax.lax.approx_max_k(nms_map.reshape(-1), budget)
-        else:
-            vals, idx = jax.lax.top_k(nms_map.reshape(-1), budget)
+        with jax.named_scope("fast_score_nms"):
+            raw_map = fast.corner_score_raw(im_l)
+            nms_map = fast.nms3(fast.threshold_score(raw_map, fast_threshold))
+        vals, idx = jax.lax.top_k(nms_map.reshape(-1), budget)
         Hl, Wl = im_l.shape
         yx = jnp.stack([idx // Wl, idx % Wl], axis=-1).astype(img.dtype)
         # ORB's edge threshold: corners whose orientation/BRIEF patch leaves

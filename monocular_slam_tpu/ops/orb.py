@@ -13,8 +13,8 @@ BRIEF recipe) — statistically equivalent, deterministic, and original. A
 descriptor is comparable only with descriptors produced by this module.
 
 All sampling is batched and patch-local: one dynamic-slice patch per keypoint,
-then row-local (K, 256) lookups — whole-image element-granular gathers measured
-~18x slower on TPU v5e (see `descriptors_and_pm1`). No per-keypoint loops.
+then row-local (K, 256) lookups instead of whole-image element-granular
+gathers (see `descriptors_and_pm1`). No per-keypoint loops.
 """
 
 from __future__ import annotations
@@ -78,9 +78,9 @@ def orientations(img: jnp.ndarray, yx: jnp.ndarray) -> jnp.ndarray:
 
     Formulated as one vmapped 31x31 `dynamic_slice` per keypoint times two
     constant disc-weight masks — NOT a (K, 709) flat gather with a constant
-    offset table, which sends the TPU backend into a pathological
-    optimization pass (measured ~300 s XLA compile PER INSTANCE, ~2100 s
-    for the 8-level extractor; this form compiles in seconds). Keypoints
+    offset table, which once sent an XLA backend into a pathological
+    optimization pass (minutes of compile per instance; this form compiles
+    in seconds). Keypoints
     are border-suppressed upstream (`features.extract`), so the clamped
     slice origin never actually shifts a patch."""
     H, W = img.shape
@@ -104,14 +104,13 @@ def _descriptors_continuous(
     """Continuous per-keypoint steering (OpenCV ORB's semantics): rotate the
     pattern by each keypoint's EXACT angle and round to pixels.
 
-    MXU formulation: a sample at patch position (y, x) is the bilinear form
+    Matmul formulation: a sample at patch position (y, x) is the bilinear form
     onehot(y) . P . onehot(x) over the keypoint's (D, D) patch — so all 512
     pattern points of all K keypoints become TWO batched matmuls
     ((K, 512, D) one-hots against (K, D, D) patches), with zero gathers.
-    The element-granular whole-image gather formulation this replaces
-    measured 7.4 ms at K=1000 on v5e; this runs in well under 1 ms, which
-    is what makes exact steering affordable as the robustness mode (and
-    the `auto` default's fallback) instead of a 5x extraction tax."""
+    It replaces an element-granular whole-image gather formulation; its
+    cost is what makes exact steering affordable as the robustness mode
+    (and the `auto` default's fallback)."""
     H, W = img.shape
     D = STEER_PATCH
     R = STEER_RADIUS
@@ -157,18 +156,18 @@ def descriptors_and_pm1(
     sensitivity). Returns (packed (K, 8) uint32, pm1 (K, 256) int8 {-1,+1}).
     Bits pack little-endian: bit b of word w = test index w*32+b.
 
-    TPU formulation: one STEER_PATCH^2 `dynamic_slice` patch per keypoint
+    Formulation: one STEER_PATCH^2 `dynamic_slice` patch per keypoint
     from an edge-padded image (padding keeps every patch centered AND
     reproduces the image-edge clamp of direct sampling), then the one-hot
-    bilinear sampling core of `_descriptors_continuous` — two batched MXU
-    matmuls, zero gathers (element-granular whole-image gathers, the direct
-    formulation, measured 5.4 ms at K=1000 on v5e). Steering quantized to
+    bilinear sampling core of `_descriptors_continuous` — two batched
+    matmuls, zero gathers (in place of element-granular whole-image
+    gathers, the direct formulation). Steering quantized to
     N_ANGLE_BINS (6 deg) is the ORB paper's own LUT discretization (the
     paper uses 12 deg); 6-deg bins cost ~9 bits of quantization noise vs
     continuous steering — well under typical inter-frame inlier Hamming
     distances (~31) — and halve the noise of the paper's own tables. The
-    f32 HIGHEST sampling keeps each comparison exact (bf16 patches measured
-    enough near-tie bit flips to destabilize tracking on low-texture
+    f32 HIGHEST sampling keeps each comparison exact (reduced-precision
+    patches were seen to cause enough near-tie bit flips to destabilize tracking on low-texture
     scenes).
 
     steer_mode: "binned" (quantized steering — descriptor bits flip only
@@ -183,7 +182,7 @@ def descriptors_and_pm1(
     (patch, N_ANGLE_BINS*256) LUT matmul that computed all 60 bins per
     keypoint and selected one — 46.7 of the extractor's 48.8 analytic
     GFLOPs for 1/60 of its output (the one-hot core computes only the
-    selected bin: measured 5.9 -> 3.9 ms extraction at K=1000 on v5e)."""
+    selected bin)."""
     if steer_mode != "continuous":
         # Hard nearest-bin quantization (the ORB paper's LUT semantics). An
         # angle-interpolated two-bin blend was tried and reverted: adjacent
@@ -207,7 +206,7 @@ def unpack_pm1(desc: jnp.ndarray) -> jnp.ndarray:
     """(K, 8) uint32 packed bits -> (K, 256) int8 in {-1, +1}.
 
     The +-1 expansion turns Hamming distance into a 256-dim dot product:
-    dist = (256 - a . b) / 2 — which the matcher runs on the MXU as one
+    dist = (256 - a . b) / 2 — which the matcher runs as one int8
     matmul instead of XOR+popcount loops (`FORB.cpp:81-100` equivalent).
     """
     shifts = jnp.arange(32, dtype=jnp.uint32)
@@ -233,12 +232,12 @@ def hamming_packed(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 class Features(NamedTuple):
-    """Per-frame fixed-capacity feature set — the TPU analog of
+    """Per-frame fixed-capacity feature set — the analog of
     `Frame::Features` (`src/Frame.h:22-34`)."""
 
     uv: jnp.ndarray  # (N, 2) float (x, y) pixel positions at level 0 scale
     desc: jnp.ndarray  # (N, 8) uint32 packed ORB bits
-    desc_pm1: jnp.ndarray  # (N, 256) int8 {-1,+1} for MXU matching
+    desc_pm1: jnp.ndarray  # (N, 256) int8 {-1,+1} for matmul matching
     angle: jnp.ndarray  # (N,)
     score: jnp.ndarray  # (N,) FAST score
     scale: jnp.ndarray  # (N,) pyramid scale (1.2^level) — `Features::scales`

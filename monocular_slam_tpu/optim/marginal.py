@@ -4,7 +4,7 @@ Covers g2o's `MarginalCovarianceCholesky`
 (`ThirdParty/g2o/g2o/core/marginal_covariance_cholesky.{h,cpp}`, 222 LoC cpp):
 given the optimized graph, recover per-vertex covariance blocks of H^{-1}
 without inverting the full (F*6 + P*3) system. g2o walks the sparse Cholesky
-factor of the REDUCED pose system with a recursive formula; on TPU the same
+factor of the REDUCED pose system with a recursive formula; here the same
 quantities fall out of the blocked Schur identities directly:
 
     H = [ Hpp  W  ]        S = Hpp - W Hll^{-1} W^T   (the Schur complement
@@ -33,7 +33,7 @@ import jax.numpy as jnp
 
 from monocular_slam_tpu.optim import ba as ba_mod
 from monocular_slam_tpu.utils.linalg import inv3x3
-from monocular_slam_tpu.utils.precision import matmul_hp as _mm
+from monocular_slam_tpu.utils.precision import einsum_hp, matmul_hp as _mm
 
 
 class MarginalCovariance(NamedTuple):
@@ -119,7 +119,7 @@ def marginal_covariance(
     # landmark marginals: Hll^{-1} + Hll^{-1} (U^T S^{-1} U)_ll Hll^{-1},
     # with (U^T S^{-1} U) needed only in its (P, 3, 3) diagonal blocks
     M = _mm(S_inv, U)  # (F*6, P*3)
-    G = jnp.einsum(
+    G = einsum_hp(
         "ipa,ipb->pab",
         U.reshape(F * 6, P, 3),
         M.reshape(F * 6, P, 3),

@@ -1,6 +1,6 @@
 """Reprojection residuals with hand-coded analytic Jacobians.
 
-The TPU replacement for g2o's `EdgeSE3ProjectXYZ` / `EdgeSE3ProjectXYZOnlyPose`
+The batched replacement for g2o's `EdgeSE3ProjectXYZ` / `EdgeSE3ProjectXYZOnlyPose`
 (`types/types_six_dof_expmap.cpp:103-139`): residual r = pi(K, T X) - uv, with
 the classic 2x6 pose Jacobian (for a LEFT-multiplied twist update
 T <- exp(xi) T, xi = (omega, upsilon) — the same update g2o's VertexSE3Expmap
@@ -75,9 +75,8 @@ def linearize(T: jnp.ndarray, X: jnp.ndarray, k: jnp.ndarray, uv: jnp.ndarray):
         [-hat(Xc), jnp.broadcast_to(jnp.eye(3, dtype=Xc.dtype), Xc.shape + (3,))],
         axis=-1,
     )  # (..., 3, 6)
-    # expanded tiny matmuls (see utils.precision.small_mm): exact f32 VPU
-    # math; HIGHEST-precision dots at these shapes pad onto MXU tiles and
-    # dominate the whole linearization (~60x slower at 65k-edge batches)
+    # expanded tiny matmuls (see utils.precision.small_mm): exact f32
+    # elementwise math, no per-edge tiny dot
     Jp = small_mm(A, dXc_dxi)  # (..., 2, 6)
     Jl = small_mm(A, se3.rotation(T))  # (..., 2, 3)
     return r, Jp, Jl

@@ -15,12 +15,11 @@ scatter at all:
   landmark-side reduction (Hll,  einsum reduce over the F axis
   bl) — g2o's per-edge scatters
   (block_solver.hpp:373-439)
-  Schur cross term               ONE (F*6, P*3) x (P*3, F*6) MXU matmul
+  Schur cross term               ONE (F*6, P*3) x (P*3, F*6) matmul
 
-Measured on TPU v5e at the bench shape (F=16, N=1000, P_slab=4096): the
-edge-list engine (`optim/ba.py`) spends 3.6 ms/LM-iteration in its dense
-(F,6,P,3) scatter-adds; the previous gather-based variant of this module
-spent ~1.5 ms/iteration gathering (P, F) rows; this layout removes both.
+The edge-list engine (`optim/ba.py`) spends its time in dense (F,6,P,3)
+scatter-adds, and an earlier gather-based variant of this module in
+gathering (P, F) rows; this layout removes both.
 
 The grid also deduplicates edges: if two features of one frame point at the
 same landmark (possible after `mapping.fuse`), exactly one cell survives —
@@ -111,13 +110,11 @@ def _linearize(prob: WindowBAProblem, poses, points, delta: float):
     w = jnp.where(prob.valid_pf, prob.info_pf * w_rob, 0.0)
     chi2 = jnp.sum(jnp.where(prob.valid_pf, rho, 0.0))
 
-    # Contraction-length rule for TPU lowering: long contractions (over the
-    # P axis) stay einsums (true MXU matmuls); short ones (a=2, j=3) are
-    # expanded to broadcast-multiply-sum — a HIGHEST-precision dot at those
-    # shapes pads every batch element onto MXU tiles (measured ~1 ms for a
-    # 65k-element batch of 2x3 dots vs ~10 us expanded).
+    # Contraction-length rule: long contractions (over the P axis) stay
+    # einsums (true matmuls); short ones (a=2, j=3) are expanded to
+    # broadcast-multiply-sum (see utils.precision.small_mm).
     wJp = Jp * w[..., None, None]  # (P, F, 2, 6)
-    Hpp = _einsum("pfai,pfaj->fij", wJp, Jp)  # contract (p, a): MXU
+    Hpp = _einsum("pfai,pfaj->fij", wJp, Jp)  # contract (p, a): matmul
     bp = -_einsum("pfai,pfa->fi", wJp, r)
     wJl = Jl * w[..., None, None]  # (P, F, 2, 3)
     # landmark-side: expand the a=2 axis, reduce over f (elementwise + sum)
@@ -160,7 +157,7 @@ def _schur_solve(prob: WindowBAProblem, lin, lam):
     # b_red = bp - sum_p Y_pf bl_p
     b_red = lin["bp"] - _einsum("pfij,pj->fi", Y_pf, lin["bl"])
 
-    # Schur cross term as ONE MXU matmul over the (P*3) inner axis.
+    # Schur cross term as ONE matmul over the (P*3) inner axis.
     U = jnp.transpose(U_pf, (1, 2, 0, 3)).reshape(F * 6, P * 3)
     Y = jnp.transpose(Y_pf, (1, 2, 0, 3)).reshape(F * 6, P * 3)
     S = jnp.zeros((F, 6, F, 6), dtype=dtype)
@@ -179,7 +176,7 @@ def _schur_solve(prob: WindowBAProblem, lin, lam):
     dxp = jsl.cho_solve(jsl.cho_factor(S, lower=True), b_red).reshape(F, 6)
 
     # back-substitution: dxl = Hll^{-1}(bl - W^T dxp) (`block_solver.hpp:459-479`)
-    wt_dxp = _einsum("pfij,fi->pj", U_pf, dxp)  # (P, 3), contract (f, i): MXU
+    wt_dxp = _einsum("pfij,fi->pj", U_pf, dxp)  # (P, 3), contract (f, i): matmul
     dxl = small_mv(Hll_inv, lin["bl"] - wt_dxp)
     return dxp, dxl, b_red.reshape(F, 6)
 

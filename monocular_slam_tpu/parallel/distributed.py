@@ -17,7 +17,7 @@ efficiency from 1 host to >=2 hosts. This module is the process-level entry:
 
 On one process everything degrades to the single-host `parallel/mesh.py`
 behavior. Multi-process CPU (the test harness: 2 processes x 4 virtual CPU
-devices) uses the same code path as multi-host TPU pods — see
+devices) uses the same code path as a multi-host cluster — see
 `benchmarks/multihost.py` and `tests/test_multihost.py`.
 """
 
@@ -41,7 +41,7 @@ def initialize(
     """Initialize jax.distributed for multi-process runs (idempotent).
 
     Resolution order: explicit args -> MSLAM_* env vars -> JAX cluster
-    auto-detection (TPU pod metadata). Returns True if a multi-process
+    auto-detection (cluster metadata). Returns True if a multi-process
     runtime was initialized, False for single-process operation.
     """
     global _INITIALIZED

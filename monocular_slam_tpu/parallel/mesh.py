@@ -10,7 +10,8 @@ communication layer is a `jax.sharding.Mesh` with two logical axes:
              a contiguous slab of map points and all BA edges that observe
              them; the Schur reduction is a psum over this axis.
 
-On a TPU pod slice both axes ride ICI; across hosts jax.distributed +
+The cards of one host are joined all to all (NVLink), so the mesh follows
+the algorithm alone; across hosts jax.distributed +
 standard device enumeration applies (multi-host initialization is the
 caller's responsibility via `jax.distributed.initialize`).
 """

@@ -1,6 +1,6 @@
 """Distributed global bundle adjustment: landmark-sharded Schur reduction.
 
-The TPU-native replacement for the one parallel region the reference has —
+The distributed replacement for the one parallel region the reference has —
 g2o's OpenMP Schur loop (`ThirdParty/g2o/g2o/core/block_solver.hpp:378-431`)
 — scaled out over a device mesh (BASELINE.json configs[4]):
 
@@ -285,7 +285,8 @@ def distributed_bundle_adjust(
     right for up to a few hundred keyframes at SMALL shard counts: its
     per-iteration collective is the full (F*6, F*6) reduced system, an
     O(F^2) psum repeated on every device, so throughput DEGRADES with the
-    shard count (measured 4.9 -> 2.6 iters/s from 1 -> 8 shards at F=32).
+    shard count (4.9 -> 2.6 iters/s from 1 -> 8 shards at F=32, measured on virtual
+    CPU devices, not on GPUs).
     solver="cg": matrix-free block-Jacobi PCG (`optim/cg_ba.py`) — one (F,6)
     psum per CG step, no F^2 communication; the KITTI-scale path (measured
     2.7 -> 4.4 iters/s over the same sweep).

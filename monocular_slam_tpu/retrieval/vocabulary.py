@@ -6,7 +6,7 @@ hierarchical k-means on ORB descriptors (k-means++ seeding, bitwise-majority
 means — `FORB::meanValue`, `FORB.cpp:40-77`), tf-idf weighted bag-of-words
 vectors, and L1/L2/chi2/dot similarity scoring (`ScoringObject.h:73-89`).
 
-TPU-shaped design decisions:
+Matmul-shaped design decisions:
   - the tree is stored as dense arrays: level l holds k^(l+1) node descriptors
     as +-1 int8 (256,) rows; `transform` descends all descriptors of a frame
     through all levels with ONE Hamming matmul per level (descriptor x node
@@ -162,12 +162,11 @@ def transform_words(voc: Vocabulary, desc_pm1: jnp.ndarray, valid: jnp.ndarray) 
     descent, vectorized over all descriptors). Returns (N,) int32 word ids
     (invalid descriptors get word 0 but are masked by callers via tf).
 
-    MXU-shaped: each level scores ALL descriptors against ALL level nodes
+    Matmul-shaped: each level scores ALL descriptors against ALL level nodes
     with ONE +-1 matmul, then slices each descriptor's k children out of
     the distance matrix (a tiny (N, k) take_along_axis). The per-descriptor
-    child gather it replaces — (N, k, 256) rows from the node table — ran
-    at ~25 ms/frame on TPU v5e (gathers don't tile onto the MXU); the
-    matmul form is ~0.5 ms for a 10^4-word tree at N=1000."""
+    child gather it replaces — (N, k, 256) rows from the node table — is
+    the direct form."""
     N = desc_pm1.shape[0]
     node = jnp.zeros(N, jnp.int32)
     d8 = desc_pm1.astype(jnp.int8)

@@ -32,7 +32,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max-points", type=int, default=30000)
     p.add_argument("--no-ba", action="store_true", help="disable local BA")
     p.add_argument("--loop-closure", action="store_true")
-    p.add_argument("--vocab", default=None, help="path to a trained vocabulary npz")
+    p.add_argument("--vocab", default="default",
+                   help="trained vocabulary npz for --loop-closure "
+                        "(default: the bundled vocabulary)")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument(
         "--profile", default=None, metavar="LOGDIR",
@@ -57,28 +59,6 @@ def main(argv=None) -> int:
     from monocular_slam_tpu.io import ply, trajectory
     from monocular_slam_tpu.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu.slam.session import SlamSession
-
-    cfg = SlamConfig(
-        max_frames=args.max_frames,
-        max_points=args.max_points,
-        frontend=FrontendConfig(n_features=args.features),
-    )
-
-    lc = None
-    if args.loop_closure:
-        from monocular_slam_tpu.retrieval import vocabulary as vocab_mod
-        from monocular_slam_tpu.slam.loop_closer import LoopCloser
-
-        if args.vocab == "default":
-            voc = vocab_mod.load_default()
-        elif args.vocab:
-            voc = vocab_mod.load(args.vocab)
-        else:
-            print("[run] no --vocab given; training a small vocabulary on the fly")
-            voc = None  # trained after the first frames below
-        lc = ("pending", voc)
-
-    sess = SlamSession(cfg, seed=args.seed, run_ba=not args.no_ba)
 
     # --- dataset ------------------------------------------------------------
     gt_poses = None
@@ -115,43 +95,33 @@ def main(argv=None) -> int:
         if all(fr.pose_gt is not None for fr in seq.frames):
             gt_poses = np.stack([fr.pose_gt for fr in seq.frames])
 
-    # --- loop-closure vocabulary on the fly ---------------------------------
-    def maybe_attach_loop_closer(i):
-        nonlocal lc
-        if lc is None or not isinstance(lc, tuple):
-            return
-        kind, voc = lc
-        if voc is None and i == 10:
-            from monocular_slam_tpu.retrieval import vocabulary as vocab_mod
+    image = any(f[0] == "image" for f in frames)
+    cfg = SlamConfig(
+        max_frames=args.max_frames,
+        max_points=args.max_points,
+        # programs are compiled for the sequence's own resolution
+        image_wh=loader(0).shape[::-1] if image else SlamConfig.image_wh,
+        frontend=FrontendConfig(n_features=args.features),
+    )
 
-            st = sess.state
-            slots = [int(st.slot_of[j]) for j in range(min(10, i))]
-            desc = np.concatenate(
-                [
-                    np.asarray(st.desc_pm1[s])[np.asarray(st.kp_valid[s])]
-                    for s in slots
-                    if s >= 0
-                ]
-            )
-            voc = vocab_mod.train(desc, k=8, L=3, seed=args.seed)
-        if voc is not None:
-            from monocular_slam_tpu.slam.loop_closer import LoopCloser
+    # the closer is built before the session: the session wires its BoW
+    # database into the fused per-frame step at construction
+    lc = None
+    if args.loop_closure:
+        from monocular_slam_tpu.retrieval import vocabulary as vocab_mod
+        from monocular_slam_tpu.slam.loop_closer import LoopCloser
 
-            closer = LoopCloser(voc=voc, cfg=cfg)
-            # replay BoW history for already-ingested KEYFRAMES only — the
-            # database discipline the session maintains afterwards (inserting
-            # every frame would inflate the candidate set and the median
-            # similarity floor, and admit non-keyframe loop candidates the
-            # essential-graph correction doesn't expect)
-            for j in sess.keyframes:
-                if j <= i:
-                    closer.add_frame(sess.state, j)
-            sess.loop_closer = closer
-            lc = closer
+        voc = (
+            vocab_mod.load_default() if args.vocab == "default"
+            else vocab_mod.load(args.vocab)
+        )
+        lc = LoopCloser(voc=voc, cfg=cfg)
+
+    sess = SlamSession(cfg, seed=args.seed, run_ba=not args.no_ba, loop_closer=lc)
 
     # compile the per-frame programs in parallel before frame 0 (wall time
-    # = max over programs, not sum — matters on remote-compile backends)
-    sess.prewarm(image=any(f[0] == "image" for f in frames))
+    # = max over programs, not sum)
+    sess.prewarm(image=image)
 
     # --- main loop (the reference's per-frame stage loop, main.cpp:48-51) ---
     import contextlib
@@ -175,8 +145,6 @@ def main(argv=None) -> int:
                   f"[{idx:4d}] tracked={st.tracked} inliers={st.n_inliers} "
                   f"new={st.n_new_points} map={sess.n_map_points}"
               )
-          if args.loop_closure and isinstance(lc, tuple):
-              maybe_attach_loop_closer(idx)
     wall = time.perf_counter() - t0
 
     # --- outputs ------------------------------------------------------------
@@ -203,8 +171,8 @@ def main(argv=None) -> int:
         r = ate_mod.ate(poses[valid], gt_poses[: len(valid)][valid])
         summary["ate_rmse"] = round(float(r.rmse), 5)
         summary["rpe"] = round(ate_mod.rpe(poses[valid], gt_poses[: len(valid)][valid]), 5)
-    if args.loop_closure and not isinstance(lc, tuple) and lc is not None:
-        summary["loop_closures"] = getattr(lc, "closures", [])
+    if lc is not None:
+        summary["loop_closures"] = lc.closures
     print(json.dumps(summary))
     return 0
 

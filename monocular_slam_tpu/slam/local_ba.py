@@ -6,20 +6,19 @@ the per-frame refinement is a fixed-size window: the W frames most covisible
 with the current frame (including it) are free, the next W are fixed
 anchors, and all map points observed by the window are free.
 
-Two-stage layout, each chosen by TPU measurement:
+Two-stage layout:
 
 1. **Slab compaction** — the window observes <= 2W*N landmarks but the global
    point capacity P is 10-100x larger; BA arrays sized by P make every
-   landmark-side op pay for dead capacity (measured 2.2x whole-solve slowdown
-   at P=20k vs a 4k slab). One P-length cumsum ranks active points into a
+   landmark-side op pay for dead capacity. One P-length cumsum ranks active points into a
    fixed-capacity slab, once per solve.
 2. **Scatter-free LM iterations** — the slab problem runs on the structured
    (frame, feature) engine (`optim/window_ba.py`): landmark reductions ride a
    (P_slab, 2W) observation table built with ONE scatter per solve, so the
-   10-iteration LM loop contains only gathers, einsums, and one MXU matmul
+   10-iteration LM loop contains only gathers, einsums, and one matmul
    for the Schur cross term. The generic edge-list engine (`optim/ba.py`)
    rebuilt a dense (F,6,P,3) Schur operand with two scatter-adds EVERY
-   iteration — measured 3.6 ms of the 5.7 ms iteration at W=8, N=1000.
+   iteration.
 
 Global BA (`optim.ba.global_bundle_adjust`) remains available for loop
 closure and final refinement.

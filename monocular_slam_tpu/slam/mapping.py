@@ -125,7 +125,7 @@ def fuse(
     The candidates are first compacted to the <= `slab_cap` points actually
     visible in frame i (one O(P) projection + cumsum), so the pairwise
     pixel/Hamming tables are (N, L) instead of (N, P) — the O(N*P) HBM
-    traffic this stage used to burn at map scale (VERDICT r2 weak #3) only
+    traffic this stage used to burn at map scale only
     ever touched ~in-view points anyway."""
     P = state.points.shape[0]
     N = state.kp_uv.shape[1]
@@ -185,7 +185,7 @@ def fuse(
 
 def covisibility(state: SlamState) -> jnp.ndarray:
     """(F, F) matrix of shared-map-point counts between frames — the
-    covisibility graph as one MXU matmul over the frame-point incidence
+    covisibility graph as one matmul over the frame-point incidence
     (rows of evicted frames are zero)."""
     F = state.poses.shape[0]
     P = state.points.shape[0]

@@ -46,7 +46,7 @@ class SlamState(NamedTuple):
     kp_scale: jnp.ndarray  # (S, N) pyramid scale (`Features::scales`)
     kp_valid: jnp.ndarray  # (S, N) bool
     desc: jnp.ndarray  # (S, N, 8) uint32 packed ORB
-    desc_pm1: jnp.ndarray  # (S, N, 256) int8 for MXU matching
+    desc_pm1: jnp.ndarray  # (S, N, 256) int8 for matmul matching
     feat_point: jnp.ndarray  # (S, N) int32 — map point id or -1
     slot_of: jnp.ndarray  # (F,) int32 — frame's slot, -1 if evicted/none
     frame_of: jnp.ndarray  # (S,) int32 — slot's frame, -1 if free

@@ -1,7 +1,7 @@
-"""Small-matrix linear algebra tuned for TPU batch workloads.
+"""Small-matrix linear algebra tuned for batched workloads.
 
-Batched `eigh` is the dominant cost of RANSAC on TPU (512-2000 hypotheses x
-9x9/12x12 nullspace problems lower to slow per-matrix loops). For hypothesis
+Batched `eigh` can dominate RANSAC (512-2000 hypotheses x 9x9/12x12
+nullspace problems can lower to slow per-matrix loops). For hypothesis
 solving, the smallest eigenvector only needs enough accuracy to rank inlier
 sets — shifted inverse power iteration (one batched Cholesky + a few
 triangular solves) delivers that at a fraction of the cost; exact `eigh`
@@ -60,7 +60,7 @@ def nullspace_vector(A: jnp.ndarray, method: str = "eigh", iters: int = 8) -> jn
 def polar_orthogonalize(M: jnp.ndarray, iters: int = 4) -> jnp.ndarray:
     """Orthogonal (rotation) factor of batched 3x3 matrices via Higham's
     Newton iteration X <- (X + X^{-T})/2 — converges quadratically to the
-    polar factor without SVD (batched 3x3 SVD is slow on TPU). Input must
+    polar factor without SVD (batched 3x3 SVD can lower to slow per-matrix loops). Input must
     have det > 0 for a proper rotation."""
     X = M / jnp.maximum(
         jnp.linalg.norm(M, axis=(-2, -1), keepdims=True) / jnp.sqrt(3.0), 1e-12
@@ -74,10 +74,10 @@ def polar_orthogonalize(M: jnp.ndarray, iters: int = 4) -> jnp.ndarray:
 def inv3x3(M: jnp.ndarray) -> jnp.ndarray:
     """Closed-form cofactor inverse of batched 3x3 matrices.
 
-    Replaces `jnp.linalg.inv` in the BA hot path: XLA's batched TPU LU costs
-    ~3.4 ms for 4096 3x3 blocks (vs ~0.05 ms for this pure-VPU form) and its
-    TPU lowering has returned inf for well-conditioned near-identity inputs
-    (see `geometry/sim3._inv3x3`). Intended for damped SPD blocks
+    Replaces `jnp.linalg.inv` in the BA hot path: a batched LU is a loop per
+    block where this is plain elementwise arithmetic, and an LU lowering
+    has returned inf for well-conditioned near-identity inputs (see
+    `geometry/sim3._inv3x3`). Intended for damped SPD blocks
     (Hll + lam*I), where the determinant floor never engages."""
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]

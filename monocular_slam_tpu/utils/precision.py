@@ -1,12 +1,13 @@
 """Matmul precision policy.
 
-On TPU, f32 matmuls/einsums lower to the MXU at bfloat16 input precision by
-default — fine for the feature-matching matmuls, catastrophic for the small
-3x3/6x6 geometry and normal-equation math (observed: 0.14 rad SE3 log errors
-on-chip vs 2e-4 on CPU). All small-matrix math in this package goes through
-these helpers, which pin `jax.lax.Precision.HIGHEST` (full f32 on MXU).
-Deliberately-low-precision big matmuls (Hamming distance, BoW scoring) call
-jnp directly with their own precision choice.
+On a GPU, an f32 matmul/einsum without a pinned precision may run in TF32
+(about three decimal digits) — harmless for exact integer matmuls, ruinous
+for the small 3x3/6x6 geometry and normal-equation math. All small-matrix
+math in this package goes through these helpers, which pin
+`jax.lax.Precision.HIGHEST` (full f32). Matmuls that are exact at any
+precision call jnp directly: the int8 ±1 Hamming matmuls (int32
+accumulator) and the 0/1 incidence matmuls (f32 accumulator, exact for
+counts below 2^24).
 """
 
 from __future__ import annotations
@@ -29,10 +30,8 @@ def matmul_hp(a, b):
 
 def small_mv(A, x):
     """Batched tiny matrix-vector product (..., m, k) @ (..., k) -> (..., m)
-    expanded as broadcast multiply + sum: exact f32 on the VPU. For
-    contraction lengths of 3-4, a HIGHEST-precision dot lowers each batch
-    element onto padded MXU tiles — measured ~60x slower at (65536, 2, 3)
-    batches on TPU v5e than this elementwise form."""
+    expanded as broadcast multiply + sum: exact f32 elementwise math, no
+    per-element tiny dot for contraction lengths of 3-4."""
     return jnp.sum(A * x[..., None, :], axis=-1)
 
 

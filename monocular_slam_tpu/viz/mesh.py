@@ -6,7 +6,7 @@ and the visualizer offers Poisson meshing with statistical-outlier and voxel
 filters (`src/PointCloudVisualizer.cpp:533-738`). Here:
 
   - `estimate_normals`: PCA over k-nearest neighbours, distances as one
-    matmul (TPU-shaped), batched 3x3 eigendecompositions;
+    matmul, batched 3x3 eigendecompositions;
   - `remove_outliers` / `voxel_downsample`: the PassThrough /
     StatisticalOutlierRemoval / VoxelGrid filter chain (:607-641);
   - `greedy_projection_mesh`: project the cloud onto its dominant plane,
@@ -244,7 +244,7 @@ def poisson_mesh(
     """Poisson surface reconstruction: a watertight mesh from an oriented
     point cloud — the capability the reference gets from
     `pcl::Poisson` (`src/PointCloudVisualizer.cpp:533-605`, setDepth(9)
-    etc.), built TPU-era style on regular grids:
+    etc.), built on regular grids:
 
       1. estimate normals if not given (PCA, centroid-oriented);
       2. splat the oriented normals into a 2^depth^3 vector grid V

@@ -187,7 +187,7 @@ class TestCamera:
 
 
 def test_jit_and_vmap_compose():
-    """Everything must be jit/vmap-composable (the TPU contract)."""
+    """Everything must be jit/vmap-composable (the device contract)."""
     f = jax.jit(jax.vmap(lambda xi, X: camera.project(TestCamera.K, se3.apply(se3.exp(xi), X))))
     xi = jnp.zeros((4, 6))
     X = jnp.ones((4, 3))

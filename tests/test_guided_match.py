@@ -89,7 +89,7 @@ class TestGuidedMatch:
         valid = jnp.ones(200, bool)
         na = vocab.node_words(voc, a, valid, levels_up=0)
         nb = vocab.node_words(voc, b, valid, levels_up=0)
-        full = matching.match(a, b, valid, valid, ratio=0.9, use_pallas=False)
+        full = matching.match(a, b, valid, valid, ratio=0.9)
         guided = matching.guided_match(a, b, valid, valid, na, nb, ratio=0.9)
         n_full = int(full.n_matches)
         n_guided = int(guided.n_matches)

@@ -91,3 +91,15 @@ class TestTrajectoryParse:
                 f.write(" ".join(f"{v:.9f}" for v in r) + "\n")
         out = native.parse_trajectory(str(p))
         np.testing.assert_allclose(out, rows, atol=1e-9)
+
+
+def test_render_png_writer_roundtrip(tmp_path):
+    """The renderer's stdlib PNG writer (no PIL) round-trips through the
+    native decoder bit for bit."""
+    from monocular_slam_tpu.datasets.render import write_png_gray8
+
+    img = (np.random.RandomState(0).rand(37, 53) * 255).astype(np.uint8)
+    path = str(tmp_path / "gray8_stdlib.png")
+    write_png_gray8(path, img)
+    np.testing.assert_array_equal(native.load_png_f32(path), img.astype(np.float32))
+    np.testing.assert_array_equal(native.load_batch_f32([path])[0], img.astype(np.float32))

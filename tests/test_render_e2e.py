@@ -7,6 +7,8 @@ CameraPoseEstimator), measured by trajectory ATE against the exported
 groundtruth.txt rather than by eyeball (`UnitTest/compareORBSLAM`).
 """
 
+import json
+
 import numpy as np
 import pytest
 
@@ -23,6 +25,25 @@ def tum_synth(tmp_path_factory):
     root = tmp_path_factory.mktemp("data") / "tum_synth_e2e"
     render.export_tum(str(root), key=jax.random.PRNGKey(3), n_frames=12, wh=(320, 240))
     return str(root)
+
+
+def test_cli_loop_closure(tum_synth, tmp_path, capsys):
+    """`run.main --loop-closure` builds its session with the closer attached
+    (bundled vocabulary) and tracks the sequence through the CLI."""
+    from monocular_slam_tpu import run
+
+    rc = run.main([
+        "--dataset", tum_synth, "--out", str(tmp_path / "out"),
+        "--features", "600", "--max-frames", "16", "--max-points", "4000",
+        "--start", "0", "--end", "12", "--step", "1", "--loop-closure",
+    ])
+    assert rc == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["frames"] == 12
+    # the bar of test_image_pipeline_ate, which runs the same sequence
+    assert summary["tracked"] >= 10
+    assert summary["ate_rmse"] < 0.04
+    assert summary["loop_closures"] == []  # a short arc has no revisit
 
 
 def test_image_pipeline_ate(tum_synth):

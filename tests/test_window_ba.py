@@ -112,7 +112,7 @@ class TestParity:
         assert float(rw.chi2_history[-1]) < 0.7 * float(rw.chi2_initial)
 
     def test_full_lm_f32_converges_like_f64(self):
-        """The f32 path (what runs on TPU) must reach the same chi2 basin as
+        """The f32 path (what runs on the GPU) must reach the same chi2 basin as
         the f64 oracle even though individual steps differ in the noise."""
         wprob, _, _, _ = make_problem(jax.random.PRNGKey(2))
         r32 = window_ba.bundle_adjust(wprob, n_iters=10)
